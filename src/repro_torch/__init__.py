@@ -8,7 +8,7 @@ Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; the device of the tensors decides whether a kernel or
 its plain version runs.  Nothing here imports JAX.
 
-Ported so far: ``netdc_batch`` and ``power_batch`` through
-``repro_torch.core.run_sweep``.
+Ported so far: ``netdc_batch``, ``power_batch`` and ``fleet_batch`` (with
+the single-scenario ``fleet``) through ``repro_torch.core.run_sweep``.
 """
 from .device import resolve_device  # noqa: F401

@@ -31,6 +31,7 @@ BACKEND = "vec"
 
 _SCENARIOS: Dict[str, Callable[..., Any]] = {}
 _SCENARIO_MODULES: Tuple[str, ...] = (
+    "repro_torch.core.vec_cluster",
     "repro_torch.core.vec_netdc",
     "repro_torch.core.vec_power",
 )

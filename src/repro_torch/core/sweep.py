@@ -111,8 +111,12 @@ class SweepReport:
 @dataclass(frozen=True)
 class SweepConfig:
     """How to *schedule* a sweep, separate from the scenario's parameters
-    (the reference's fields, less ``precision`` and ``donate``, which
-    return with the engines that read them).
+    (the reference's fields, less ``donate``: the port's chunks reuse no
+    buffers).
+
+    ``precision`` is ``"exact"`` (f64) or ``"fast"`` (f32 loop) where the
+    engine offers the opt-in (``fleet_batch``); ``None`` defers to the
+    engine's default.
 
     ``use_pallas`` is accepted and ignored, so reference call sites run
     unchanged: in the port the device of the tensors decides whether a
@@ -129,6 +133,7 @@ class SweepConfig:
     sharding: Optional[str] = None
     on_chunk: Optional[Callable] = None
     progress: Optional[Callable] = None
+    precision: Optional[str] = None
     use_pallas: Any = False
     quarantine: bool = False
 
@@ -137,6 +142,10 @@ class SweepConfig:
             raise ValueError(
                 f"sharding must be None, 'pmap' or 'shard_map': "
                 f"{self.sharding!r}")
+        if self.precision not in (None, "exact", "fast"):
+            raise ValueError(
+                f"precision must be None, 'exact' or 'fast': "
+                f"{self.precision!r}")
         for name in ("chunk_size", "segment_iters"):
             v = getattr(self, name)
             if v is not None and int(v) < 1:

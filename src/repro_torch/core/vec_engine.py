@@ -2,7 +2,8 @@
 
 Port of ``repro/core/vec_engine.py`` (``Loop``, ``VecEngine``,
 ``run_one``/``batched_sim``, ``BatchPlan``, ``Done``, ``run_plan``,
-``make_batch_entry``, ``broadcast_cells``, ``empty_report``).  A scenario is declared as in the reference:
+``make_batch_entry``, ``broadcast_cells``, ``empty_report``,
+``resolve_precision``).  A scenario is declared as in the reference:
 
   * a hashable **statics** object (shapes and feature flags);
   * a **params** tree of tensors whose every leaf carries the lane axis
@@ -22,7 +23,9 @@ update a leaf in place and return the same tensor: it then guarantees
 that lanes whose ``cond`` is false are left as they were.  A static
 ``trip_count`` runs a plain Python loop.  ``Loop.step_kernel`` is an
 optional whole-loop launcher an engine sets when its state lies on the
-card; the driver then hands it the initial state and takes the final one.
+card; the driver then hands it the initial state and takes the final one
+(with a dynamic ``cond`` also the per-lane ``it``), with no host sync per
+iteration.
 
 Every tensor is created with an explicit dtype: there is no global
 precision switch (the reference runs under ``enable_x64``).
@@ -47,8 +50,12 @@ class Loop(NamedTuple):
 
     ``trip_count`` promises ``cond(state, it) == (it < trip_count)`` on
     every lane, so the driver runs exactly that many steps.
-    ``step_kernel(init) -> final state`` runs all ``trip_count`` steps in
-    one launch, with outputs bit-identical to the step loop.
+    ``step_kernel(init) -> final state`` then runs all ``trip_count``
+    steps in one launch, with outputs bit-identical to the step loop.
+    Without ``trip_count``, ``step_kernel(init) -> (final state, it)``
+    runs every lane until its own ``cond`` is false and returns the
+    per-lane iteration counts (``[B]`` int32); lanes that finish early
+    keep their state, as in the driver's where-live loop.
     """
 
     init: Any
@@ -98,6 +105,8 @@ def run_one(engine: VecEngine, params: Any, statics: Any
                 it = torch.full((n,), i, dtype=torch.int32, device=dev)
                 state = loop.body(state, it)
         it = torch.full((n,), trips, dtype=torch.int32, device=dev)
+    elif loop.step_kernel is not None:
+        state, it = loop.step_kernel(loop.init)
     else:
         state = loop.init
         it = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -125,6 +134,18 @@ class BatchPlan(NamedTuple):
     statics: Any
     predicted_cost: Optional[Any] = None      # per-cell loop-length estimate
     finalize: Optional[Callable[[Dict[str, Any]], Any]] = None  # host-side
+
+
+def resolve_precision(precision: str) -> bool:
+    """Validate an engine's ``precision`` opt-in → ``fast`` flag.
+
+    ``"exact"`` runs the loop in f64; ``"fast"`` keeps the f64 stochastic
+    sample but runs the loop arithmetic in f32.
+    """
+    if precision not in ("exact", "fast"):
+        raise ValueError(
+            f"precision must be 'exact' or 'fast': {precision!r}")
+    return precision == "fast"
 
 
 class Done(NamedTuple):

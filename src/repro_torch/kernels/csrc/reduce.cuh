@@ -56,6 +56,16 @@ __device__ __forceinline__ T warp_max(T v) {
   return v;
 }
 
+template <typename T>
+__device__ __forceinline__ T warp_min(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    T o = __shfl_xor_sync(REPRO_FULL_MASK, v, off);
+    v = o < v ? o : v;
+  }
+  return v;
+}
+
 // Block-wide reductions.  Every thread of the block must call them (they
 // synchronise), and every thread receives the result.  `scratch` is shared
 // memory of at least 32 entries of the given type; blockDim.x is a
@@ -83,6 +93,18 @@ __device__ T block_max(T v, T lowest, T* scratch) {
   __syncthreads();
   v = lane < nwarps ? scratch[lane] : lowest;
   return warp_max(v);
+}
+
+template <typename T>
+__device__ T block_min(T v, T highest, T* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_min(v);
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  v = lane < nwarps ? scratch[lane] : highest;
+  return warp_min(v);
 }
 
 template <typename T>

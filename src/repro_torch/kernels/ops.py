@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from .next_event import next_event
+from .next_event import next_event, next_event_ref
 
 
 def masked_min(values, mask=None):
@@ -52,3 +52,21 @@ class MaskedOps:
 
     def argmax(self, values, mask=None):
         return masked_argmax(values, mask)
+
+
+class PlainOps:
+    """The same reductions through the plain next_event on any device: the
+    kernels' plain versions use them, so that a comparison on the card
+    launches no kernel."""
+
+    @staticmethod
+    def min(values, mask=None):
+        return next_event_ref(values, mask)[0]
+
+    @staticmethod
+    def argmin(values, mask=None):
+        return next_event_ref(values, mask)[1]
+
+    @staticmethod
+    def argmax(values, mask=None):
+        return next_event_ref(-values, mask)[1]

@@ -20,7 +20,7 @@ import functools
 import torch
 
 from . import _build
-from .next_event import next_event_ref
+from .ops import PlainOps
 
 _I32, _F64 = torch.int32, torch.float64
 _SMEM_PER_HOST = 37                 # bytes of shared memory per host
@@ -106,25 +106,13 @@ def power_step(c, it, p, s, ops):
         scale_in=c.scale_in + want_in.to(_I32))
 
 
-class _PlainOps:
-    """Masked reductions through the plain next_event on any device."""
-
-    @staticmethod
-    def argmin(values, mask):
-        return next_event_ref(values, mask)[1]
-
-    @staticmethod
-    def argmax(values, mask):
-        return next_event_ref(-values, mask)[1]
-
-
 def power_scan_ref(init, params, statics):
     """Plain version: :func:`power_step` for every interval, in order."""
     c = init
     n = params.trace.shape[0]
     for k in range(statics.n_intervals):
         it = torch.full((n,), k, dtype=_I32, device=params.trace.device)
-        c = power_step(c, it, params, statics, _PlainOps)
+        c = power_step(c, it, params, statics, PlainOps)
     return c
 
 

@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from repro_torch.core import run_sweep
+from repro_torch.core import vec_cluster as vc
+from repro_torch.core.cluster import FleetConfig, StepCost
 from repro_torch.core.vec_netdc import simulate_netdc_batch
 from repro_torch.core.vec_power import (_Carry, _Params, _Statics,
                                         simulate_power_batch)
@@ -23,7 +25,16 @@ from repro_torch.kernels import next_event as ne_mod
 from repro_torch.kernels import power_scan as ps_mod
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+# The fleet slice's files are checked in test_torch_fleet_rules.py.  Split
+# so, no tests/test_torch_*.py file holds more than 24 tests: with
+# ``--dist loadfile`` pytest-xdist hands the six largest files out first,
+# one to each worker, and those must stay reference files (ROADMAP.md).
+FLEET_SLICE = ("src/repro_torch/core/cluster.py",
+               "src/repro_torch/core/vec_cluster.py",
+               "src/repro_torch/kernels/fleet_rng.py",
+               "src/repro_torch/kernels/fleet_step.py")
+PORT_FILES = [p for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+              if str(p.relative_to(ROOT)) not in FLEET_SLICE] + [
     ROOT / "chip_smoke.py"]
 
 
@@ -57,6 +68,9 @@ def test_default_device_is_the_card():
         simulate_netdc_batch(seeds=[0], n_jobs=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         simulate_power_batch(seeds=[0], n_samples=4, device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        vc.simulate_fleet_batch(StepCost(1.0, 0.5, 0.2), FleetConfig(n_nodes=4),
+                                10, seeds=[0])
 
 
 class _CudaLike:

@@ -181,7 +181,7 @@ def test_delay_rows_equal_scalar_store_and_forward():
 
 def test_params_from_reference_rejects_what_it_cannot_carry():
     with pytest.raises(ValueError, match="not ported"):
-        params_from_reference("fleet_batch", {}, {}, device="cpu")
+        params_from_reference("llmserve_batch", {}, {}, device="cpu")
     with pytest.raises(ValueError, match="missing arrays"):
         params_from_reference("netdc_batch", {"submit": np.zeros((1, 2))},
                               {}, device="cpu")

@@ -112,6 +112,7 @@ def test_port_tests_do_not_load_the_reference_here():
         sys.path[:0] = [sys.argv[1], sys.argv[2]]
         import test_torch_masked_ops, test_torch_vec_engine  # noqa: F401
         import test_torch_netdc, test_torch_power  # noqa: F401
+        import test_torch_fleet, test_torch_fleet_rng  # noqa: F401
         import test_torch_hygiene  # noqa: F401
         bad = [m for m in sys.modules
                if m == "repro" or m.startswith("repro.") or m == "jax"]

@@ -239,8 +239,9 @@ def test_make_batch_entry_registers_and_routes_sweep():
 
 
 def test_unported_kind_and_unknown_backend_raise():
-    with pytest.raises(ScenarioUnsupported, match="netdc_batch, power_batch"):
-        run_sweep("fleet_batch", dict(seeds=[0]), device="cpu")
+    with pytest.raises(ScenarioUnsupported,
+                       match="fleet, fleet_batch, netdc_batch, power_batch"):
+        run_sweep("llmserve_batch", dict(seeds=[0]), device="cpu")
     with pytest.raises(BackendError, match="only 'vec'"):
         run_sweep("netdc_batch", dict(seeds=[0]), backend="oo",
                   device="cpu")
